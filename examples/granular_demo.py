@@ -1,14 +1,13 @@
 """Granular-dynamics demo at scale: a self-gravitating debris disk with the
 FULL collision physics (bounce + friction + heating + contact-timer merges
-+ fractures) running through the fused Pallas kernel
++ fractures) running through the collision window sweep
 (nbx.ops.collide + nbx.collisions_scaled) — the capability the reference
 caps at 300 bodies (index.html:57), here at tens of thousands.
 
     python examples/granular_demo.py [n] [n_frames] [out_dir]
 
-Default N is sized for an interactive single-v5e run; the full collision
-step measured 39.5 ms at N=131072 on the uniform-cloud benchmark
-(docs/RESULTS.md; this peaked disk scene uses the banded layout).
+Default N is sized for an interactive run on one GPU; this peaked disk
+scene uses the bucketed collision layout.
 """
 
 import os
@@ -66,16 +65,17 @@ def main(n: int = 32768, n_frames: int = 60, out_dir: str = "/tmp/nbx_granular",
     )
     mats = default_materials()
     totals_sum = dict(n_bounces=0, n_merges=0, n_fractures=0)
-    # The disk is a PEAKED scene (a thin annulus: ~2% of windows hold all
-    # bodies), so the banded per-cell-cap layout is the right tool — the
-    # band-PACKED layout's uniform window caps would have to cover the
-    # densest window (~900 bodies) and blow the pair work up ~25x
-    # (docs/RESULTS.md "layout choice by scene shape").
+    # The disk is a PEAKED scene (a thin annulus: a few per cent of windows
+    # hold all bodies), so the bucketed layout is the right tool — uniform
+    # packed caps would have to cover the densest window everywhere.
+    from nbx.ops.collide import bucketed_layout_for
+
+    buckets = bucketed_layout_for(st.pos, BOX, 28, 6)
     t0 = time.time()
     for f in range(n_frames):
         st, totals = granular_full_kdk_scan(
             st, cfg, BOX, n_steps=steps_per_frame,
-            n_cells=28, max_per_cell=12, band_cells=6, force_impl="auto",
+            n_cells=28, band_cells=6, buckets=buckets, force_impl="auto",
         )
         for k in ("n_bounces", "n_merges", "n_fractures"):
             totals_sum[k] += int(totals[k])

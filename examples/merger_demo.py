@@ -2,9 +2,9 @@
 collision course, gravity-only KDK at scale, device-side splat rendering.
 
 On a multi-chip slice the step shards bodies over the mesh
-(nbx.parallel.shard); on one chip it runs the single-device Pallas path.
-Default N is sized for an interactive single-v5e demo; pass n=1048576 on a
-v5p-8 slice for the full configuration.
+(nbx.parallel.shard); on one device it runs the single-device path.
+Default N is sized for an interactive demo on one GPU; pass n=1048576 on
+four cards for the full configuration.
 
     python examples/merger_demo.py [n] [n_frames] [out_dir]
 """

@@ -2,9 +2,9 @@
 galaxy merger — P3M gravity (auto-tuned accurate split) + band-packed
 bucketed collisions (bounce/merge/fracture/timers) + thermal decay +
 device-side frame rendering (splat + impostors + tiered trails + event
-flashes + bloom), chunked into <30 s dispatches.
+flashes + bloom), one scan dispatch and one render dispatch per frame.
 
-This is the assembly of the separately-proven pieces (docs/RESULTS.md):
+This is the assembly of the separately-tested pieces:
 the granular full-physics scan (nbx.collisions_scaled, force_impl="p3m"),
 the scene-census P3M tune (nbx.ops.p3m.p3m_tune_for), the occupancy-
 bucketed collision layout (nbx.ops.collide.bucketed_layout_for) and the
@@ -16,8 +16,8 @@ reference's 300-body cap; physics per index.html:247-443.
 
     python examples/merger_full.py [n] [n_frames] [out_dir] [steps_per_frame]
 
-Off-TPU the driver shrinks to a smoke-test size and runs the Pallas
-kernels in interpreter mode, so the assembly stays testable anywhere.
+Without a GPU, pass a small n (e.g. 2048 4): the plain XLA paths run
+the same assembly anywhere.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ import numpy as np
 def main(n: int = 1_048_576, n_frames: int = 180,
          out_dir: str = "/tmp/nbx_merger_full", steps_per_frame: int = 2,
          width: int = 640, height: int = 360):
-    import jax
     import jax.numpy as jnp
 
     from nbx import scene
@@ -47,19 +46,13 @@ def main(n: int = 1_048_576, n_frames: int = 180,
     )
     from nbx.render.splat import Camera
 
-    on_tpu = jax.default_backend() == "tpu"
-    interpret = not on_tpu
-    if not on_tpu and n > 4096:
-        n, n_frames = 2048, 4  # smoke-test size off-TPU
-        print(f"[merger_full] non-TPU backend: shrinking to n={n}",
-              file=sys.stderr)
 
     os.makedirs(out_dir, exist_ok=True)
     sc, box = scene.galaxy_merger_3d(n=n, seed=0)
 
     # ---- gravity: scene-census P3M tune ---------------------------------
     tune = p3m_tune_for(
-        sc["pos"], box, residual_budget=131072, affected_budget=2048,
+        sc["pos"], box, residual_budget=131072,
         k_max=1536,
     )
     print(f"[merger_full] p3m tune: {tune}", file=sys.stderr)
@@ -72,8 +65,8 @@ def main(n: int = 1_048_576, n_frames: int = 180,
         jnp.asarray(sc["mass"]), jnp.asarray(sc["mat"]), cfg.materials))))
     g_c = min(64, int(box / (2.2 * r_max)))
     g_c = max(8, g_c - g_c % 2)
-    # B=8 is the measured 1M band: taller bands are rejected by the
-    # bucketed tail-cap sizing at this occupancy (docs/RESULTS.md round 5)
+    # B=8 at 1M: taller bands push the bucketed tail caps past
+    # bucketed_layout_for's source-lane bound at this occupancy
     band = 8 if g_c >= 16 else 2
     buckets = bucketed_layout_for(sc["pos"], box, g_c, band)
     print(f"[merger_full] collisions: g={g_c} band={band} buckets={buckets}",
@@ -110,8 +103,7 @@ def main(n: int = 1_048_576, n_frames: int = 180,
             pm_grid=tune["g"], p3m_cells=tune["n_cells"],
             p3m_k=tune["max_per_cell"],
             p3m_max_residual=tune["max_residual"],
-            interpret=interpret, log_events=True, green_hat=green_hat,
-            p3m_pp_buckets=tune.get("pp_buckets"),
+            log_events=True, green_hat=green_hat,
         )
 
     def render(frame, st, ev):

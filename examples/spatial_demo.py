@@ -43,11 +43,10 @@ def main(n: int = 8192, n_steps: int = 60, out_dir: str = "/tmp/nbx_spatial"):
     d = len(jax.devices())
     g = 16 * d // math.gcd(16, d)  # lcm(16, d): any device count works
     mesh = shard.make_mesh(d)
-    interp = jax.default_backend() != "tpu"
     step = spatial.make_spatial_granular_step(
         mesh, cfg, BOX, g, band_cells=4, packed_caps=(96, 256),
         halo_cap=max(256, 4 * n // g), mig_cap=max(128, n // 32),
-        force_impl="pm", pm_grid=64, interpret=interp,
+        force_impl="pm", pm_grid=64,
     )
     st = spatial.spatial_state_for(mesh, pos, vel, mass, BOX, g)
     key = jax.random.PRNGKey(0)

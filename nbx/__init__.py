@@ -1,4 +1,4 @@
-"""nbx — N-body simulation on XLA: a TPU-native simulation engine.
+"""nbx — N-body simulation on XLA: a GPU simulation engine in JAX.
 
 Re-implements the capabilities of the reference browser N-body simulator
 (Arecibo130117/N-body-sim, a single index.html: three.js + scalar-JS physics)
@@ -7,7 +7,7 @@ as an idiomatic JAX/XLA/Pallas framework:
   - fixed-capacity SoA state pytree (nbx.state) instead of a dynamic object array
   - jit-compiled KDK leapfrog stepped under lax.scan (nbx.integrators, nbx.sim)
   - masked data-parallel collision/merge/fracture resolution (nbx.collisions)
-  - Pallas tiled pairwise-force kernel for the O(N^2) hot loop (nbx.ops.pairwise)
+  - Pallas-Triton direct-sum kernel for the O(N^2) hot loop (nbx.ops.pairwise)
   - body sharding over a device mesh with per-step all-gather (nbx.parallel)
   - device-side point-splat rendering with async readback (nbx.render)
 """

@@ -2,7 +2,7 @@
 
 Not present in the reference — a page reload loses everything and
 resetScenario is the only restore (/root/reference/index.html:744-766,
-SURVEY.md section 5). The TPU build needs real snapshots: long drift gates,
+SURVEY.md section 5). nbx needs real snapshots: long drift gates,
 preemptible jobs, and the 10k-step conservation runs all resume
 mid-trajectory.
 

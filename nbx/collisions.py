@@ -139,9 +139,8 @@ def _top_pairs(sel: jax.Array, k: int) -> tuple[jax.Array, jax.Array, jax.Array]
     """Extract up to k selected pairs in sweep order. Returns (i, j, valid).
 
     `sel` comes from a matching, so each row holds at most one selected
-    column: row reductions + a rank scatter suffice — NO sort/top_k (XLA
-    sorts over the C^2 pair space dominated the whole collision substep on
-    TPU before this: ~100 ms at capacity 300, measured by ablation).
+    column: row reductions + a rank scatter suffice — no sort/top_k over
+    the C^2 pair space.
     """
     c = sel.shape[0]
     row_has = jnp.any(sel, axis=1)  # [C]

@@ -1,8 +1,8 @@
 """Cell-binned bounce resolution — collisions beyond the O(C^2) envelope.
 
 The masked dense formulation (nbx.collisions) is exact reference semantics
-but carries [C, C] pair matrices: measured interactive to capacity ~4k on
-one v5e chip. This module extends the BOUNCE subsystem (impulse + friction +
+but carries [C, C] pair matrices (interactive up to a capacity of a few
+thousand). This module extends the BOUNCE subsystem (impulse + friction +
 Baumgarte correction + impact heating, index.html:327-369 and 335-336) to
 granular scales (planetary rings, debris disks, 100k+ bodies) with the same
 cell-binning machinery as the P3M short-range pass:

@@ -5,7 +5,7 @@ nbx.collisions is exact reference semantics in [C, C] pair matrices
 subsystem only. This module runs the COMPLETE event physics of the
 reference sweep (/root/reference/index.html:293-443) — contact timers,
 merges, fractures, impulses, heating — at granular scale, on top of the
-fused Pallas neighborhood kernel (nbx.ops.collide).
+window pair sweep of nbx.ops.collide.
 
 At-scale contact bookkeeping (the piece that actually needed the [C, C]
 state) is replaced by a PER-BODY partner record:
@@ -128,9 +128,8 @@ class ScaledEvents(NamedTuple):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_cells", "max_per_cell", "band_cells", "packed_caps",
-                     "max_blocks", "buckets", "interpret",
-                     "windows_per_block", "construction"),
+    static_argnames=("n_cells", "band_cells", "packed_caps", "buckets",
+                     "interpret", "construction"),
 )
 def resolve_collisions_scaled(
     state: GranularState,
@@ -138,18 +137,16 @@ def resolve_collisions_scaled(
     h,
     box_size: float,
     n_cells: int,
-    max_per_cell: int = 16,
     band_cells: int | None = None,
     packed_caps: tuple[int, int] | None = None,
-    max_blocks: int | None = None,
     buckets: tuple[tuple[int, int, int], ...] | None = None,
     interpret: bool = False,
-    windows_per_block: int = 1,
     construction: str = "auto",
 ) -> tuple[GranularState, ScaledEvents]:
     """One full collision substep at scale (reference resolveCollisions,
     index.html:293-390, with the divergences documented in the module
     docstring). Runs between the force evaluation and the second half-kick.
+    Layout arguments as nbx.ops.collide.binned_collision_pass.
     """
     n = state.mass.shape[0]
     i_arange = jnp.arange(n, dtype=jnp.int32)
@@ -158,9 +155,9 @@ def resolve_collisions_scaled(
     dvel, dpos, dtemp, best, n_bounces, n_overflow, too_small = (
         binned_collision_pass(
             state.pos, state.vel, state.mass, radius, box_size, n_cells,
-            cfg.restitution, cfg.friction, max_per_cell, band_cells,
-            packed_caps, max_blocks, buckets, interpret,
-            windows_per_block, construction,
+            cfg.restitution, cfg.friction, band_cells=band_cells,
+            packed_caps=packed_caps, buckets=buckets, interpret=interpret,
+            construction=construction,
         )
     )
     pos = state.pos + dpos
@@ -255,8 +252,7 @@ def resolve_collisions_scaled(
     # the merge gates are bitwise-SYMMETRIC between mutual partners (vn/q/E
     # commute exactly; t_pair is a min — the invariant the spatial halo
     # protocol relies on), so the secondary side is pure arithmetic: no
-    # N-length scatter (TPU scatters serialize; the sharded paths already
-    # use this form, nbx/parallel/shard.py:399)
+    # N-length scatter (the sharded paths use the same form)
     killed = merge_m & (i_arange > jc)
     pm2 = primary_m[:, None]
     pos = jnp.where(pm2, mpos, pos)
@@ -297,9 +293,8 @@ def resolve_collisions_scaled(
     # ---- place fragments into dead slots -----------------------------------
     fk = frag["mask"].shape[0]  # F * K
     dead = mass <= 0.0
-    # first-fk dead slots via take_rows (searchsorted over the cumsum) —
-    # the equivalent N-length rank-scatter measured 5.7-16x slower on v5e
-    # (nbx.bench.microops; docs/RESULTS.md "Scatter hygiene")
+    # first-fk dead slots via take_rows (searchsorted over the cumsum, no
+    # N-length rank scatter)
     slot_of_rank, sv = _take_rows(dead, fk)
     slot_of_rank = jnp.where(sv, slot_of_rank, n)
     frank = jnp.cumsum(frag["mask"].astype(jnp.int32)) - 1
@@ -359,10 +354,9 @@ def resolve_collisions_scaled(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "n_steps", "n_cells", "max_per_cell", "band_cells", "packed_caps",
-        "max_blocks", "buckets", "force_impl", "pm_grid", "interpret",
-        "p3m_cells", "p3m_k", "p3m_max_residual", "log_events",
-        "p3m_pp_buckets", "windows_per_block", "construction",
+        "n_steps", "n_cells", "band_cells", "packed_caps", "buckets",
+        "force_impl", "pm_grid", "interpret", "p3m_cells", "p3m_k",
+        "p3m_max_residual", "log_events", "construction",
     ),
 )
 def granular_full_kdk_scan(
@@ -371,10 +365,8 @@ def granular_full_kdk_scan(
     box_size: float,
     n_steps: int,
     n_cells: int = 32,
-    max_per_cell: int = 16,
     band_cells: int | None = None,
     packed_caps: tuple[int, int] | None = None,
-    max_blocks: int | None = None,
     buckets: tuple[tuple[int, int, int], ...] | None = None,
     force_impl: str = "auto",
     pm_grid: int = 128,
@@ -384,8 +376,6 @@ def granular_full_kdk_scan(
     p3m_max_residual: int = 8192,
     log_events: bool = False,
     green_hat: jax.Array | None = None,
-    p3m_pp_buckets: tuple[tuple[int, int, int], ...] | None = None,
-    windows_per_block: int = 1,
     construction: str = "auto",
 ):
     """Full-physics granular loop at scale: KDK gravity + fused-kernel
@@ -402,14 +392,15 @@ def granular_full_kdk_scan(
     accurate particle-particle/particle-mesh split (nbx.ops.p3m: PM part on
     the pm_grid^3 mesh, exact erfc pairs within p3m_cells-grid
     neighborhoods at p3m_k bodies/cell, adaptive residual for overflowing
-    cells; the tune that measured 1.376 s/eval at 8.4e-3 core error on the
-    1M+30k scene is p3m_cells=12, p3m_k=768 — docs/RESULTS.md) — and
-    "zero" (no gravity: pure contact dynamics, also the collision-cost
-    isolation mode for benchmarks). PM turns the gravity half of a 1M-body
-    collisional step from ~6 s (direct) into ~0.8 s, the right trade for
+    cells; nbx.ops.p3m.p3m_tune_for sizes it) — and "zero" (no gravity:
+    pure contact dynamics, also the collision-cost isolation mode for
+    benchmarks). PM makes the gravity half of a 1M-body collisional step
+    O(N + G^3 log G) instead of O(N^2), the right trade for
     collisionless-scale gravity + collisional contact dynamics (planetary
     rings, debris disks); P3M restores small-scale force accuracy on
-    clustered scenes (merging galaxy cores) at ~2x PM cost."""
+    clustered scenes (merging galaxy cores).
+
+    Layout arguments as nbx.ops.collide.binned_collision_pass."""
     from nbx.sim import gravity
 
     if force_impl == "pm":
@@ -454,9 +445,7 @@ def granular_full_kdk_scan(
             return p3m_acceleration(
                 pos, mass, cfg.G, box_size, g=pm_grid, n_cells=p3m_cells,
                 max_per_cell=p3m_k, eps=cfg.softening,
-                max_residual=p3m_max_residual, pp_impl="pallas",
-                interpret=interpret, green_hat=green_hat,
-                pp_buckets=p3m_pp_buckets,
+                max_residual=p3m_max_residual, green_hat=green_hat,
             )
         return gravity(pos, mass, cfg.G, cfg.softening, force_impl), z
 
@@ -467,9 +456,8 @@ def granular_full_kdk_scan(
         acc2, n_unc = _force(pos, st.mass)
         st = st._replace(pos=pos, vel=vel)
         st, ev = resolve_collisions_scaled(
-            st, cfg, h, box_size, n_cells, max_per_cell, band_cells,
-            packed_caps, max_blocks, buckets, interpret,
-            windows_per_block, construction,
+            st, cfg, h, box_size, n_cells, band_cells, packed_caps, buckets,
+            interpret, construction,
         )
         # slots reborn by merge/fracture are NEWBORN: acc = 0
         # (index.html:217) — their pre-event acc includes dead partners'

@@ -1,24 +1,24 @@
-"""Multi-chip scaling: bodies sharded over a device mesh.
+"""Multi-device scaling: bodies sharded over a device mesh.
 
 The reference is a single browser tab with zero parallelism (SURVEY.md
-section 2b); this module is the scaling story the TPU build adds (BASELINE
-config 5: N = 1M galaxy merger on v5p-8).
+section 2b); this module is the multi-card scaling story (BASELINE config
+5: the N = 1M galaxy merger).
 
 Design (the all-gather strategy from the scaling playbook):
 
-  * 1D mesh axis "b": each chip owns N/D bodies (pos, vel, mass shards).
-  * Per KDK substep, every chip `lax.all_gather`s the drifted positions and
-    masses over ICI (tiled), then computes the force of ALL bodies on its
-    LOCAL shard with the rectangular Pallas kernel — O(N^2/D) flops/chip,
-    O(N) comm/chip per step.
-  * Optional 2D mesh ("b", "j"): the source axis is also sharded, each chip
-    computes a partial force over its source slice and a `psum` over "j"
-    completes the reduction — halves the gather volume per chip when the
-    per-chip N shard no longer amortizes the all-gather.
+  * 1D mesh axis "b": each device owns N/D bodies (pos, vel, mass shards).
+  * Per KDK substep, every device `lax.all_gather`s the drifted positions
+    and masses (tiled), then computes the force of ALL bodies on its LOCAL
+    shard with the rectangular gravity kernel (or the plain blocked sum,
+    as nbx.backend picks) — O(N^2/D) flops/device, O(N) comm/device.
+  * Optional 2D mesh ("b", "j"): the source axis is also sharded, each
+    device computes a partial force over its source slice and a `psum`
+    over "j" completes the reduction — halves the gather volume per device
+    when the per-device N shard no longer amortizes the all-gather.
   * Diagnostics (energy/momentum) are psum-reduced on device.
 
 Everything is `shard_map` over a `jax.sharding.Mesh`, so the same code runs
-on a real multi-chip slice or on N virtual CPU devices
+on several GPUs or on N virtual CPU devices
 (--xla_force_host_platform_device_count) in the test suite.
 """
 
@@ -31,6 +31,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from nbx import forces
+from nbx.backend import kernel_impl
 
 
 def make_mesh(n_devices: int | None = None, axes=("b",)) -> Mesh:
@@ -89,18 +91,15 @@ def shard_state2d(mesh: Mesh, pos, vel, mass) -> ShardedState:
 
 
 def _local_acc(pos_all, mass_all, pos_local, G, eps, impl: str):
-    """Force of all bodies on the local shard (rectangular problem)."""
+    """Force of all bodies on the local shard (rectangular problem): the
+    gravity kernel ("pallas") or the plain blocked sum ("jnp"), both in
+    O(N_local * block) memory."""
     if impl == "pallas":
         from nbx.ops.pairwise import pairwise_acc
 
         return pairwise_acc(pos_all, mass_all, G, eps, target_pos=pos_local)
-    # jnp fallback (tests on CPU): dense rectangular
-    d = pos_all[None, :, :] - pos_local[:, None, :]
-    r2 = jnp.sum(d * d, axis=-1) + jnp.asarray(eps, pos_all.dtype) ** 2
-    safe = jnp.where(r2 > 0, r2, 1.0)
-    f = G * jax.lax.rsqrt(safe) / safe
-    w = jnp.where(r2 > 0, f * mass_all[None, :], 0.0)
-    return jnp.einsum("ij,ijc->ic", w, d)
+    return forces.accelerations_blocked(pos_all, mass_all, G, eps,
+                                        target_pos=pos_local)
 
 
 def make_sharded_step(mesh: Mesh, impl: str = "auto"):
@@ -127,6 +126,7 @@ def make_sharded_step(mesh: Mesh, impl: str = "auto"):
             mesh=mesh,
             in_specs=(P("b", None), P("b", None), P("b", None), P("b")),
             out_specs=(P("b", None), P("b", None), P("b", None)),
+            check_vma=False,  # pallas_call outputs carry no vma type
         )(state.pos, state.vel, state.acc, state.mass)
         return ShardedState(pos, vel, acc, state.mass)
 
@@ -172,6 +172,7 @@ def make_sharded_step_2d(mesh: Mesh, impl: str = "auto"):
             mesh=mesh,
             in_specs=(P(("b", "j"), None),) * 3 + (P(("b", "j")),),
             out_specs=(P(("b", "j"), None),) * 3,
+            check_vma=False,  # pallas_call outputs carry no vma type
         )(state.pos, state.vel, state.acc, state.mass)
         return ShardedState(pos, vel, acc, state.mass)
 
@@ -184,7 +185,7 @@ def make_sharded_step_ring(mesh: Mesh, impl: str = "auto"):
     Instead of one all-gather of every position (peak comm buffer = N), the
     source chunk rotates around the ring with `lax.ppermute`: D-1 hops of
     N/D positions+masses each, with the local force partial computed between
-    hops — XLA overlaps the async permute with the force kernel on real ICI
+    hops — XLA can overlap the async permute with the force computation
     (the systolic N-body pattern; same total bytes as the all-gather but
     O(N/D) peak buffer and compute/comm overlap instead of a serial
     gather-then-compute).
@@ -228,6 +229,7 @@ def make_sharded_step_ring(mesh: Mesh, impl: str = "auto"):
             mesh=mesh,
             in_specs=(P("b", None), P("b", None), P("b", None), P("b")),
             out_specs=(P("b", None), P("b", None), P("b", None)),
+            check_vma=False,  # pallas_call outputs carry no vma type
         )(state.pos, state.vel, state.acc, state.mass)
         return ShardedState(pos, vel, acc, state.mass)
 
@@ -298,7 +300,7 @@ def make_sharded_physics_step(mesh: Mesh, cfg, impl: str = "auto"):
 
     Pair math is dense [N/D, N] jnp (the correctness/semantics reference;
     interactive scale). The production-scale path is
-    make_sharded_granular_step, which fuses the binned Pallas kernel
+    make_sharded_granular_step, which runs the binned window sweep
     (nbx.ops.collide) per chip.
 
     PRNG contract: `key` is consumed as-is — the caller MUST pass a fresh
@@ -533,7 +535,6 @@ def run_sharded(
     n_steps: int,
     diag_every: int = 0,
     mesh: Mesh | None = None,
-    impl: str = "auto",
 ):
     """Scan n_steps of the sharded substep in one dispatch.
 
@@ -553,7 +554,7 @@ def run_sharded(
             # inner scan keeps the traced program size independent of
             # diag_every (a python loop would inline diag_every step copies)
             st, _ = jax.lax.scan(body, st, None, length=diag_every)
-            ke, pe = _sharded_energy_jit(mesh, st, G, eps, _resolve_impl(impl))
+            ke, pe = sharded_energy(mesh, st, G, eps)
             return st, jnp.stack([ke, pe])
 
         state, energies = jax.lax.scan(chunk, state, None, length=chunks)
@@ -567,7 +568,11 @@ def run_sharded(
 
 
 def _resolve_impl(impl: str) -> str:
-    return ("pallas" if jax.default_backend() == "tpu" else "jnp") if impl == "auto" else impl
+    """"auto" -> the gravity kernel where nbx.backend picks it, else the
+    plain blocked sum."""
+    if impl != "auto":
+        return impl
+    return "pallas" if kernel_impl("gravity") == "triton" else "jnp"
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "width", "height"))
@@ -616,28 +621,17 @@ def render_sharded(
     )(state.pos, state.mass)
 
 
-def sharded_energy(mesh: Mesh, state: ShardedState, G, eps, impl: str = "auto"):
-    """Total (KE, PE) computed on device with psum reduction."""
-    return _sharded_energy_jit(mesh, state, G, eps, _resolve_impl(impl))
-
-
-@functools.partial(jax.jit, static_argnames=("mesh", "impl"))
-def _sharded_energy_jit(mesh: Mesh, state: ShardedState, G, eps, impl: str):
+@functools.partial(jax.jit, static_argnames=("mesh",))
+def sharded_energy(mesh: Mesh, state: ShardedState, G, eps):
+    """Total (KE, PE) computed on device with psum reduction (blocked
+    per-body potential, O(N_local * block) memory)."""
     def local(pos, vel, mass):
         ke = 0.5 * jnp.sum(mass * jnp.sum(vel * vel, axis=-1))
         pos_all = jax.lax.all_gather(pos, "b", axis=0, tiled=True)
         mass_all = jax.lax.all_gather(mass, "b", axis=0, tiled=True)
-        if impl == "pallas":
-            from nbx.ops.pairwise import potential_per_body
-
-            phi = potential_per_body(
-                pos_all, mass_all, G, eps, target_pos=pos, target_mass=mass
-            )
-        else:
-            d = pos_all[None, :, :] - pos[:, None, :]
-            r2 = jnp.sum(d * d, axis=-1) + jnp.asarray(eps, jnp.float32) ** 2
-            inv = jax.lax.rsqrt(r2)
-            phi = -G * jnp.sum(mass_all[None, :] * inv, axis=1) + G * mass / eps
+        phi = forces.potential_per_body(
+            pos_all, mass_all, G, eps, target_pos=pos, target_mass=mass
+        )
         pe = 0.5 * jnp.sum(mass * phi)
         # psum makes the scalars identical on every device -> replicated out
         return jax.lax.psum(ke, "b"), jax.lax.psum(pe, "b")
@@ -781,7 +775,7 @@ def make_sharded_granular_step(
     interpret: bool = False,
 ):
     """Sharded FULL-physics granular step AT SCALE: KDK gravity + the
-    band-packed Pallas collision sweep + the complete event machinery of
+    band-packed collision window sweep + the complete event machinery of
     nbx.collisions_scaled (contact timers, merges, fractures, heating,
     thermal decay), body axis sharded over the mesh.
 
@@ -795,7 +789,7 @@ def make_sharded_granular_step(
     index.html:293-443) run on the chip's own shard against gathered
     decision fields.
 
-    Comm is all-gather over ICI: O(N) per-chip replication, the same
+    Comm is all-gather: O(N) per-device replication, the same
     pattern (and largely the same buffers) the direct gravity path needs
     anyway. Per-chip pair WORK is O(N S / D) kernel + O(N) layout/event
     arithmetic — the 1M full-physics multi-chip step this unlocks was

@@ -2,7 +2,7 @@
 
 The reference has none of this — its only timing artifact feeds a shader
 uniform (/root/reference/index.html:502) and the only status output is the
-mode-indicator DOM element (SURVEY.md section 5). The TPU build provides:
+mode-indicator DOM element (SURVEY.md section 5). nbx provides:
 
   * trace(): jax.profiler trace capture around a code block (view in
     TensorBoard / Perfetto)

@@ -2,7 +2,7 @@
 
 The reference composites RenderPass + UnrealBloomPass(strength 1.2,
 radius 0.5, threshold 0.3) (/root/reference/index.html:724-732). This is the
-TPU-friendly equivalent: threshold the HDR buffer, separable Gaussian blur
+device-side equivalent: threshold the HDR buffer, separable Gaussian blur
 at two scales, add back scaled by strength. Pure elementwise + small convs —
 XLA fuses it into the frame pipeline.
 """

@@ -1,4 +1,4 @@
-"""Per-pixel sphere-impostor pass — the planet surface shader, TPU-style.
+"""Per-pixel sphere-impostor pass — the planet surface shader, on device.
 
 The reference's richest visual component is its GLSL fragment shader
 (/root/reference/index.html:99-202): Ashima 3D simplex noise (L118-162),
@@ -10,7 +10,7 @@ noise cracks (t = clamp(T/50, 0, 1), crack = smoothstep(0.4, 0.6, |n2|),
 heat color (1, .3, .1), L188-191), whole-body glow above T = 50 (L194),
 ambient 0.05 (L197), and body spin rot.y += 0.2 dt (L549).
 
-TPU-first design: instead of a raster pipeline, every pixel z-tests the
+Data-parallel design: instead of a raster pipeline, every pixel z-tests the
 K largest on-screen discs (processed in fixed-size CHUNKS so memory stays
 O(H x W) and K can reach hundreds), the nearest covering body wins, and
 one fused elementwise pass shades each pixel with its winner's

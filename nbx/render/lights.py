@@ -16,7 +16,7 @@ carries the reference's light LIST as a fixed pool in FrameState:
     passes add it as warm incident light, the splat-level stand-in for the
     PointLight lighting meshes through the scene graph.
 
-TPU-first: the pool is a fixed-shape SoA array pair, insertion is a masked
+Fixed shapes: the pool is a fixed-shape SoA array pair, insertion is a masked
 rank-scatter, per-body gain is one [N, L] broadcast — no dynamic lists,
 no per-event host work.
 """

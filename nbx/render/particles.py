@@ -7,7 +7,7 @@ The reference keeps a 5000-particle CPU pool with per-frame splice/compact
 (chance min(0.1 + (T-50)*0.002, 1), velocity 0.1*body vel + jitter,
 life 0.8-1.2, L555-560, 650-663).
 
-TPU version: fixed [P] SoA pool with a free-slot mask — spawning writes into
+Device version: fixed [P] SoA pool with a free-slot mask — spawning writes into
 dead slots by priority (no compaction, no host work), update is one fused
 elementwise pass, and rendering reuses the point-splat path. PRNG is a
 carried jax.random key (deterministic, checkpointable).

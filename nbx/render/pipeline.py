@@ -212,12 +212,9 @@ def render_and_advance(
     bloom_strength/bloom_threshold are dynamic jit args — the lil-gui
     Visuals sliders (index.html:862-863) retune them without recompiling.
     n_impostors > 0 shades that many nearest bodies with the per-pixel
-    planet-surface pass (nbx.render.impostor); 0 disables it. The default
-    64 follows the measured cost curve (v5e, capacity 300, 640x360,
-    scan-slope methodology): the pass costs a flat ~23 ms/frame whether
-    K = 8 or 128 — the full-screen [H, W, K] broadcast is NOT the cost
-    driver at these K — so near-complete coverage is free relative to
-    the old K = 8 (docs/RESULTS.md 'impostor cost curve')."""
+    planet-surface pass (nbx.render.impostor); 0 disables it. The pass
+    works on fixed-size chunks of K, so its cost grows slowly with K; the
+    default 64 covers nearly every visible body at capacity 300."""
     radius = state.radius(cfg)
     c1, c2 = cfg.materials.color1, cfg.materials.color2
 

@@ -1,7 +1,7 @@
 """Device-side point-splat renderer.
 
 Replaces the reference's three.js mesh/shader/bloom pipeline
-(/root/reference/index.html:446-742) with a TPU-friendly design: project all
+(reference index.html:446-742) with a data-parallel design: project all
 bodies with a pinhole camera, scatter-add 2x2 bilinear splats into an HDR
 framebuffer (one XLA scatter, no per-body host work), add event flashes as
 additive Gaussian blobs (the point-light flashes of triggerFlash,
@@ -203,10 +203,9 @@ def _splat_bodies(pos, radius, temp, mat, alive, color1, color2, cam,
     app = f * radius / jnp.where(z > 1e-3, z, 1.0)  # apparent radius in px
 
     # THREE footprint tiers (all static shapes). Scatter-adds over the
-    # full body array are the cost that matters on TPU (measured round 4
-    # at 131k: ~1.6 ms per full-N tap scatter, 25 of them = 74 ms, and
-    # the 25-tap window would be ~320 ms at 1M), so the full-N tier is
-    # the MINIMUM footprint that keeps sub-pixel motion smooth — a 2x2
+    # full body array are the cost that grows with N (one per tap: a
+    # 25-tap window over every body is 25 full-N scatters), so the full-N
+    # tier is the MINIMUM footprint that keeps sub-pixel motion smooth — a 2x2
     # bilinear (4 scatters; weights sum to 1 exactly, and for the
     # sub-pixel majority sigma clips to 0.45 where the old 5x5 window's
     # outer taps carried < 1e-4 of the energy — bloom re-spreads points

@@ -6,7 +6,7 @@ camera-facing ribbon every frame: per history point the half-width is
 width = radius * 0.8 * (1 - i/(len-1)) and the rib direction is
 normalize((cam - p) x dir) * width, two vertices per point (L570-593).
 
-TPU version: a rolling [C, L, 3] ring buffer updated in one masked
+Device version: a rolling [C, L, 3] ring buffer updated in one masked
 dynamic-update per frame (no host work). Rendering reproduces the ribbon
 GEOMETRY — per segment, the camera-facing perpendicular and the tapered
 width are computed exactly as the reference vertex pair, and the quad

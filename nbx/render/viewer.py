@@ -2,7 +2,7 @@
 player.
 
 The reference's interactivity lives in a browser (orbit controls, lil-gui,
-index.html:716-871). The TPU engine renders on device and ships u8 frames;
+index.html:716-871). nbx renders on device and ships u8 frames;
 this module writes them as PNGs and can emit a self-contained HTML file that
 plays a recorded trajectory with a canvas 3D projection — the decoupled
 equivalent of the reference's live three.js view.
@@ -56,7 +56,7 @@ def to_u8(img) -> np.ndarray:
 
 def png_bytes(img, level: int = 6) -> bytes:
     """Encode [H, W, 3] (float in [0,1] or u8) as PNG bytes. Pure stdlib
-    (zlib) — no imaging dependency needed on a headless TPU host."""
+    (zlib) — no imaging dependency needed on a headless host."""
     a = to_u8(img) if np.asarray(img).dtype != np.uint8 else np.asarray(img)
     h, w, _ = a.shape
     raw = b"".join(b"\x00" + a[i].tobytes() for i in range(h))

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from nbx import forces, thermal
+from nbx.backend import kernel_impl
 from nbx.collisions import Events, empty_events, resolve_collisions
 from nbx.config import SimConfig
 from nbx.state import SimState
@@ -43,29 +44,28 @@ def gravity(
     softening,
     impl: str = "auto",
 ) -> jax.Array:
-    """Acceleration dispatcher. impl: auto | dense | blocked | pallas."""
+    """Acceleration dispatcher. impl: auto | dense | blocked | pallas.
+
+    "auto" takes the dense form up to _DENSE_MAX bodies and, above it,
+    whichever of the Pallas kernel ("pallas") and the plain blocked sum
+    ("blocked") nbx.backend picks for this backend."""
     n = pos.shape[0]
     if impl == "auto":
         if n <= _DENSE_MAX:
             impl = "dense"
+        elif kernel_impl("gravity") == "triton":
+            impl = "pallas"
         else:
-            impl = "pallas" if _pallas_available() else "blocked"
+            impl = "blocked"
     if impl == "dense":
         return forces.accelerations(pos, mass, G, softening)
     if impl == "blocked":
-        block = min(1024, n)
-        while n % block:
-            block //= 2
-        return forces.accelerations_blocked(pos, mass, G, softening, block)
+        return forces.accelerations_blocked(pos, mass, G, softening)
     if impl == "pallas":
         from nbx.ops.pairwise import pairwise_acc
 
         return pairwise_acc(pos, mass, G, softening)
     raise ValueError(f"unknown force impl {impl!r}")
-
-
-def _pallas_available() -> bool:
-    return jax.default_backend() == "tpu"
 
 
 def substep(

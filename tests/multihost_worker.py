@@ -45,7 +45,7 @@ def main():
     step = shard.make_sharded_step(mesh, impl="jnp")
     for _ in range(3):
         st = step(st, G, eps, h)
-    ke, pe = shard.sharded_energy(mesh, st, G, eps, impl="jnp")
+    ke, pe = shard.sharded_energy(mesh, st, G, eps)
     e = float(ke + pe)
     assert np.isfinite(e)
 
@@ -71,7 +71,7 @@ def main():
             np.testing.assert_array_equal(
                 np.asarray(sa.data), np.asarray(sb.data)
             )
-    ke2, pe2 = shard.sharded_energy(mesh, st2, G, eps, impl="jnp")
+    ke2, pe2 = shard.sharded_energy(mesh, st2, G, eps)
     assert float(ke2 + pe2) == e
     print(f"MULTIHOST OK pid={pid} E={e:.6f} ckpt=ok", flush=True)
 

@@ -1,11 +1,13 @@
-"""Fused Pallas collision kernel + full-physics scaled path: parity with the
+"""Collision window sweep + full-physics scaled path: parity with the
 binned/dense resolvers, partner-timer semantics, merges and fractures at
-scale, conservation. Kernel runs in interpret mode on the CPU backend; the
-compiled Mosaic path is gated in tests/test_tpu_only.py."""
+scale, conservation. interpret=True runs the Triton window kernel in the
+Pallas interpreter on the CPU; the default is the plain XLA sweep. The
+compiled kernel is gated on the card by tests/test_gpu.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from nbx.collisions_binned import resolve_bounces_binned
 from nbx.collisions_scaled import (
@@ -34,17 +36,21 @@ def _radius(mass):
     )
 
 
-def test_kernel_matches_binned_resolver():
-    """The fused kernel reproduces the XLA binned resolver's bounce deltas
-    (which are themselves gated against the dense path)."""
+@pytest.mark.parametrize("interpret", [False, True], ids=["xla", "kernel"])
+def test_kernel_matches_binned_resolver(interpret):
+    """The window sweep (packed layout, whole-column windows) reproduces
+    the XLA binned resolver's bounce deltas (which are themselves gated
+    against the dense path)."""
+    from nbx.ops.collide import packed_caps_for
+
     pos, vel, mass = _granular_scene()
     radius = _radius(mass)
     dp0, dv0, dt0, nb0, ovf0, _ = resolve_bounces_binned(
         pos, vel, mass, radius, BOX, n_cells=8, max_per_cell=64
     )
     dv1, dp1, dt1, best, nb1, ovf1, small = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=8, max_per_cell=64,
-        interpret=True,
+        pos, vel, mass, radius, BOX, n_cells=8,
+        packed_caps=packed_caps_for(pos, BOX, 8, 8), interpret=interpret,
     )
     assert int(ovf0) == int(ovf1) == 0 and not bool(small)
     assert int(nb0) == int(nb1) > 0
@@ -56,60 +62,24 @@ def test_kernel_matches_binned_resolver():
                                rtol=1e-4, atol=1e-6)
 
 
-def test_banded_matches_full_column():
-    """k-banded layout reproduces the full-column kernel: same partner set
-    and bounce counts exactly, deltas to fp reduction-order tolerance —
-    including a band size that does not divide n_cells.
-
-    NOTE interpret mode unrolls the (blocks, 9) grid — keep n_cells tiny."""
-    pos, vel, mass = _granular_scene(n=128, seed=3)
-    radius = _radius(mass) * 1.5  # more overlaps
-    full = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=4, max_per_cell=64,
-        interpret=True,
-    )
-    for b in (2, 3):  # 3 does not divide 4
-        banded = binned_collision_pass(
-            pos, vel, mass, radius, BOX, n_cells=4, max_per_cell=64,
-            band_cells=b, interpret=True,
-        )
-        dv0, dp0, dt0, best0, nb0, ovf0, _ = full
-        dv1, dp1, dt1, best1, nb1, ovf1, _ = banded
-        assert int(nb1) == int(nb0) > 0, f"band_cells={b}"
-        # binning (and so overflow) is identical; parity holds for the
-        # bodies that made it into the table either way
-        assert int(ovf1) == int(ovf0)
-        np.testing.assert_array_equal(
-            np.asarray(best1["j"]), np.asarray(best0["j"])
-        )
-        np.testing.assert_allclose(np.asarray(dv1), np.asarray(dv0),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(dp1), np.asarray(dp0),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(dt1), np.asarray(dt0),
-                                   rtol=1e-4, atol=1e-6)
-
-
 def test_packed_matches_banded():
-    """Band-PACKED layout (per-window caps off cell_sort, no per-cell
-    slots) reproduces the banded kernel: same partner set and bounce
-    counts, deltas to fp tolerance; generous caps -> zero overflow."""
+    """Packed windows of B-cell bands reproduce whole-column packed windows
+    (band_cells = n_cells): same partner set and bounce counts, deltas to
+    fp tolerance — including a band size that does not divide n_cells;
+    generous caps -> zero overflow."""
     pos, vel, mass = _granular_scene(n=128, seed=3)
     mass = mass.at[-16:].set(0.0)  # dead slots share the box
     radius = _radius(mass) * 1.5
+    full = binned_collision_pass(
+        pos, vel, mass, radius, BOX, n_cells=4, packed_caps=(128, 128),
+        interpret=True,
+    )
     for b in (2, 3):  # 3 does not divide 4
-        # max_per_cell=128 = N: the banded table cannot overflow (the
-        # packed layout has no per-cell slots, so a banded per-cell drop
-        # would be a real parity difference, not a packed bug)
-        banded = binned_collision_pass(
-            pos, vel, mass, radius, BOX, n_cells=4, max_per_cell=128,
-            band_cells=b, interpret=True,
-        )
         packed = binned_collision_pass(
-            pos, vel, mass, radius, BOX, n_cells=4, max_per_cell=128,
+            pos, vel, mass, radius, BOX, n_cells=4,
             band_cells=b, packed_caps=(128, 144), interpret=True,
         )
-        dv0, dp0, dt0, best0, nb0, ovf0, _ = banded
+        dv0, dp0, dt0, best0, nb0, ovf0, _ = full
         dv1, dp1, dt1, best1, nb1, ovf1, _ = packed
         assert int(nb1) == int(nb0) > 0, f"band_cells={b}"
         assert int(ovf1) == int(ovf0) == 0
@@ -142,7 +112,7 @@ def test_packed_caps_for_covers_scene():
 
 def test_packed_caps_for_rejects_peaked_scene():
     """A scene concentrated in one window must raise (uniform caps would
-    request a pathological fused-lane count) and point at the banded
+    request a pathological source-lane count) and point at the bucketed
     layout; a low quantile tames the suggestion instead."""
     import pytest as _pytest
 
@@ -152,7 +122,7 @@ def test_packed_caps_for_rejects_peaked_scene():
     pos = jnp.asarray(
         rng.uniform(48, 52, (8192, 3)).astype(np.float32)
     )  # all bodies inside ~one cell at g=16
-    with _pytest.raises(ValueError, match="banded"):
+    with _pytest.raises(ValueError, match="bucketed"):
         packed_caps_for(pos, BOX, n_cells=16, band_cells=2)
     t_cap, s_cap = packed_caps_for(
         pos, BOX, n_cells=16, band_cells=2, quantile=0.5,
@@ -167,7 +137,7 @@ def test_packed_window_overflow_counted():
     pos, vel, mass = _granular_scene(n=128, seed=3)
     radius = _radius(mass)
     *_, ovf, _ = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=4, max_per_cell=64,
+        pos, vel, mass, radius, BOX, n_cells=4,
         band_cells=2, packed_caps=(8, 8), interpret=True,
     )
     assert int(ovf) > 0
@@ -184,28 +154,10 @@ def test_packed_pair_straddles_band_boundary():
     mass = jnp.asarray([5.0, 5.0])
     radius = jnp.asarray([0.6, 0.6])
     *_, best, nb, ovf, _ = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=g, max_per_cell=8,
+        pos, vel, mass, radius, BOX, n_cells=g,
         band_cells=b, packed_caps=(8, 8), interpret=True,
     )
     assert int(nb) == 1 and int(ovf) == 0
-    assert int(best["j"][0]) == 1 and int(best["j"][1]) == 0
-
-
-def test_banded_pair_straddles_band_boundary():
-    """An overlapping pair split across a k-band boundary is resolved via
-    the guard cells."""
-    g, b = 4, 2
-    cell = BOX / g
-    z = b * cell  # boundary between cells 1 and 2 = bands 0 and 1
-    pos = jnp.asarray([[30.0, 30, z - 0.4], [30.0, 30, z + 0.4]])
-    vel = jnp.asarray([[0.0, 0, 0.5], [0.0, 0, -0.5]])
-    mass = jnp.asarray([5.0, 5.0])
-    radius = jnp.asarray([0.6, 0.6])
-    *_, best, nb, _, _ = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=g, max_per_cell=8,
-        band_cells=b, interpret=True,
-    )
-    assert int(nb) == 1
     assert int(best["j"][0]) == 1 and int(best["j"][1]) == 0
 
 
@@ -217,7 +169,7 @@ def test_kernel_partner_detection():
     mass = jnp.asarray([10.0, 10.0, 10.0])
     radius = jnp.asarray([1.0, 1.0, 1.0])  # overlap: dist 1.5 < 2
     dv, dp, dt, best, nb, ovf, small = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=8, max_per_cell=8,
+        pos, vel, mass, radius, BOX, n_cells=8, packed_caps=(64, 64),
         interpret=True,
     )
     j = np.asarray(best["j"])
@@ -240,7 +192,7 @@ def test_kernel_neighbor_cells():
     mass = jnp.asarray([5.0, 5.0])
     radius = jnp.asarray([0.6, 0.6])
     *_, best, nb, _, _ = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=16, max_per_cell=8,
+        pos, vel, mass, radius, BOX, n_cells=16, packed_caps=(128, 128),
         interpret=True,
     )
     assert int(nb) == 1 and int(best["j"][0]) == 1
@@ -275,7 +227,7 @@ def test_contact_timer_accumulates_and_merges():
         # substep and the bounce impulse would otherwise separate them)
         st = st._replace(pos=pos0, vel=vel0)
         st, ev = resolve_collisions_scaled(
-            st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+            st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
         )
         if int(ev.n_merges):
             merged = True
@@ -297,7 +249,7 @@ def test_timer_resets_on_partner_change():
     st = _touching_pair(cfg)
     h = 0.016
     st, _ = resolve_collisions_scaled(
-        st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+        st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
     )
     np.testing.assert_allclose(float(st.contact_t[0]), h, rtol=1e-6)
     # teleport body 1 away, bring body 2 into contact instead
@@ -308,7 +260,7 @@ def test_timer_resets_on_partner_change():
         vel=st.vel.at[2, 0].set(-0.05),
     )
     st, _ = resolve_collisions_scaled(
-        st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+        st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
     )
     assert int(st.partner[0]) == 2
     np.testing.assert_allclose(float(st.contact_t[0]), h, rtol=1e-6)
@@ -328,7 +280,7 @@ def test_fracture_at_scale():
     st = make_granular_state(pos, vel, mass, key=3)
     p0 = np.asarray(jnp.sum(st.mass[:, None] * st.vel, axis=0))
     st, ev = resolve_collisions_scaled(
-        st, cfg, 0.016, BOX, n_cells=8, max_per_cell=8, interpret=True
+        st, cfg, 0.016, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
     )
     assert int(ev.n_fractures) == 1
     # parents are killed; their slots are immediately reusable by fragments,
@@ -362,7 +314,7 @@ def test_fragments_capped_when_no_dead_slots():
     st = make_granular_state(pos, vel, mass, key=5)
     live_before = np.asarray(st.mass[2:])
     st, ev = resolve_collisions_scaled(
-        st, cfg, 0.016, BOX, n_cells=8, max_per_cell=8, interpret=True
+        st, cfg, 0.016, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
     )
     assert int(ev.n_fractures) == 1
     # the two parent slots free up, so exactly 2 fragments can be placed
@@ -379,10 +331,8 @@ def test_granular_full_loop_dissipates():
     cfg = SimConfig(G=0.0, dt=0.008, sub_steps=1, merge_time=1e9,
                     fracture_threshold=1e9)
     ke0 = float(jnp.sum(0.5 * mass * jnp.sum(vel * vel, axis=1)))
-    # interpret mode unrolls the grid into the step HLO — keep it tiny
-    # (n_cells=2 -> 4 columns x 9 neighbors = 36 programs per step)
     st, totals = granular_full_kdk_scan(
-        st, cfg, BOX, n_steps=40, n_cells=2, max_per_cell=64,
+        st, cfg, BOX, n_steps=40, n_cells=2, packed_caps=(128, 128),
         force_impl="blocked", interpret=True,
     )
     assert int(totals["n_bounces"]) > 0
@@ -406,7 +356,7 @@ def test_merge_under_gravity_scan():
     cfg = SimConfig(G=0.5, dt=0.016, sub_steps=1, merge_time=0.1,
                     fracture_threshold=1e9)
     st, totals = granular_full_kdk_scan(
-        st, cfg, BOX, n_steps=60, n_cells=2, max_per_cell=16,
+        st, cfg, BOX, n_steps=60, n_cells=2, packed_caps=(32, 32),
         force_impl="blocked", interpret=True,
     )
     assert int(totals["n_merges"]) == 1
@@ -423,7 +373,7 @@ def test_granular_pm_gravity_loop():
     cfg = SimConfig(G=1.0, dt=0.004, sub_steps=1, merge_time=1e9,
                     fracture_threshold=1e9)
     st, totals = granular_full_kdk_scan(
-        st, cfg, BOX, n_steps=10, n_cells=2, max_per_cell=64,
+        st, cfg, BOX, n_steps=10, n_cells=2, packed_caps=(128, 128),
         force_impl="pm", pm_grid=32, interpret=True,
     )
     assert np.isfinite(np.asarray(st.pos)).all()
@@ -431,113 +381,22 @@ def test_granular_pm_gravity_loop():
     assert np.abs(np.asarray(st.vel)).max() > 0  # gravity acted
 
 
-def test_granular_p3m_pp_buckets_matches_uniform():
-    """p3m_pp_buckets threads the occupancy-bucketed PP layout into the
-    granular P3M loop: same trajectory as the uniform layout to fp
-    tolerance (the pair set is identical by construction)."""
+def test_granular_p3m_gravity_loop():
+    """force_impl='p3m' runs the accurate split inside the granular loop:
+    contacts fire, the state stays finite and gravity acts."""
     pos, vel, mass = _granular_scene(seed=9, n=48)
     cfg = SimConfig(G=1.0, dt=0.004, sub_steps=1, merge_time=1e9,
                     fracture_threshold=1e9)
-
-    def run(buckets):
-        st = make_granular_state(pos, vel, mass, key=9)
-        st, _ = granular_full_kdk_scan(
-            st, cfg, BOX, n_steps=4, n_cells=2, max_per_cell=64,
-            force_impl="p3m", pm_grid=32, p3m_cells=4, p3m_k=16,
-            p3m_max_residual=64, interpret=True,
-            p3m_pp_buckets=buckets,
-        )
-        return np.asarray(st.pos)
-
-    base = run(None)
-    buck = run(((8, 8, 16), (16, 16, 72)))
-    np.testing.assert_allclose(buck, base, rtol=1e-5, atol=1e-6)
-
-
-def test_compacted_matches_packed():
-    """Occupancy-compacted packed layout == whole-grid packed layout when
-    both cover the scene (same partners, same deltas to fp tolerance)."""
-    pos, vel, mass = _granular_scene(n=128, seed=3)
-    radius = _radius(mass) * 2.0
-    base = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=8, band_cells=4,
-        packed_caps=(64, 96), interpret=True,
+    st = make_granular_state(pos, vel, mass, key=9)
+    st, totals = granular_full_kdk_scan(
+        st, cfg, BOX, n_steps=4, n_cells=2, packed_caps=(128, 128),
+        force_impl="p3m", pm_grid=32, p3m_cells=4, p3m_k=16,
+        p3m_max_residual=64,
     )
-    comp = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=8, band_cells=4,
-        packed_caps=(64, 96), max_blocks=128, interpret=True,
-    )
-    dv0, dp0, dt0, best0, nb0, ovf0, _ = base
-    dv1, dp1, dt1, best1, nb1, ovf1, _ = comp
-    assert int(nb1) == int(nb0) > 0
-    assert int(ovf1) == int(ovf0) == 0
-    np.testing.assert_array_equal(np.asarray(best1["j"]),
-                                  np.asarray(best0["j"]))
-    np.testing.assert_allclose(np.asarray(dv1), np.asarray(dv0),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(dp1), np.asarray(dp0),
-                               rtol=1e-5, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(dt1), np.asarray(dt0),
-                               rtol=1e-5, atol=1e-7)
-
-
-def test_compacted_peaked_scene_with_small_budget():
-    """A peaked scene (every body in a few windows): the compacted layout
-    covers it with a block budget near the OCCUPIED count — far below the
-    whole-grid window count — with zero overflow."""
-    from nbx.ops.collide import packed_layout_for
-
-    rng = np.random.default_rng(4)
-    n = 192
-    # two tight clusters in an 8^2-column grid -> ~few occupied windows
-    c = rng.choice(2, n)
-    pos = (np.stack([np.full(n, 20.0), np.full(n, 50.0), np.full(n, 20.0)], 1)
-           + c[:, None] * np.asarray([[55.0, 0.0, 55.0]])
-           + rng.normal(0, 2.0, (n, 3))).astype(np.float32)
-    pos = np.clip(pos, 1.0, 99.0)
-    vel = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
-    mass = rng.uniform(2.0, 8.0, n).astype(np.float32)
-    radius = np.asarray(_radius(jnp.asarray(mass))) * 2.0
-
-    lay = packed_layout_for(jnp.asarray(pos), BOX, 8, 4)
-    assert lay["occupied_frac"] < 0.3  # genuinely peaked
-    assert lay["max_blocks"] < 8 * 8 * 2  # below the window count
-
-    comp = binned_collision_pass(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass),
-        jnp.asarray(radius), BOX, n_cells=8, band_cells=4,
-        packed_caps=lay["packed_caps"], max_blocks=lay["max_blocks"],
-        interpret=True,
-    )
-    # reference: whole-grid packed layout, SAME tail-sized caps (every
-    # window pays them — the cost compaction removes), full coverage
-    ref = binned_collision_pass(
-        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass),
-        jnp.asarray(radius), BOX, n_cells=8, band_cells=4,
-        packed_caps=lay["packed_caps"], interpret=True,
-    )
-    assert int(comp[5]) == 0 and int(ref[5]) == 0  # no overflow either way
-    assert int(comp[4]) == int(ref[4]) > 0  # same bounce count
-    np.testing.assert_array_equal(np.asarray(comp[3]["j"]),
-                                  np.asarray(ref[3]["j"]))
-    np.testing.assert_allclose(np.asarray(comp[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-6)
-
-
-def test_compacted_block_budget_overflow_is_symmetric():
-    """Windows past max_blocks drop from BOTH roles: overflow is counted
-    and the applied impulses still conserve momentum."""
-    pos, vel, mass = _granular_scene(n=128, seed=5)
-    radius = _radius(mass) * 2.5
-    out = binned_collision_pass(
-        pos, vel, mass, radius, BOX, n_cells=8, band_cells=4,
-        packed_caps=(64, 96), max_blocks=8,  # deliberately too few
-        interpret=True,
-    )
-    dvel, dpos, dtemp, best, nb, ovf, _ = out
-    assert int(ovf) > 0  # counted, not silent
-    p = np.asarray(jnp.sum(mass[:, None] * dvel, axis=0))
-    np.testing.assert_allclose(p, 0.0, atol=1e-4)
+    assert np.isfinite(np.asarray(st.pos)).all()
+    assert int(totals["n_uncorrected"]) == 0
+    assert int(totals["n_bounces"]) > 0
+    assert not np.allclose(np.asarray(st.vel), np.asarray(vel))
 
 
 def test_packed_target_cap_overflow_is_symmetric():
@@ -697,37 +556,11 @@ def test_bucketed_matches_packed():
                                rtol=1e-5, atol=1e-7)
 
 
-def test_bucketed_multi_window_bit_identical():
-    """windows_per_block=W packs W windows per kernel program
-    (_collide_kernel_fused_multi) — a pure grid reorganization: every
-    window's pair blocks, chunk order and reduction order are unchanged,
-    so the outputs must be BIT-identical to W=1 (including when the
-    window budget needs dead-window padding to reach a multiple of W)."""
-    from nbx.ops.collide import bucketed_layout_for
-
-    pos, vel, mass = _clustered_scene()
-    radius = _radius(mass) * 2.0
-    buckets = bucketed_layout_for(pos, BOX, 8, 4, split_quantile=0.6)
-    outs = []
-    for w in (1, 3):
-        outs.append(binned_collision_pass(
-            pos, vel, mass, radius, BOX, n_cells=8, band_cells=4,
-            buckets=buckets, interpret=True, windows_per_block=w,
-        ))
-    (dv0, dp0, dt0, best0, nb0, ovf0, _), (dv1, dp1, dt1, best1, nb1,
-                                           ovf1, _) = outs
-    assert int(nb1) == int(nb0) > 0
-    assert int(ovf1) == int(ovf0)
-    for a, b in ((dv0, dv1), (dp0, dp1), (dt0, dt1),
-                 (best0["j"], best1["j"]), (best0["vn"], best1["vn"])):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_bucketed_slice_construction_bit_identical():
     """construction="slice" (strips via contiguous dynamic_slice off a
-    t_ok-masked transposed operand — the 262k construction winner,
-    docs/RESULTS.md round 5) must be BIT-identical to the grid-gather
-    construction: same strip contents, only the access pattern differs."""
+    t_ok-masked transposed operand) must be BIT-identical to the
+    grid-gather construction: same strip contents, only the access
+    pattern differs."""
     from nbx.ops.collide import bucketed_layout_for
 
     pos, vel, mass = _clustered_scene()
@@ -785,19 +618,18 @@ def test_bucketed_sparse_bucket0_matches_packed():
     """On a peaked scene whose bucket-0 budget covers only a small
     fraction of the grid windows (4 * bmax < n_windows), bucket 0 takes
     the compacted-style direct gathers instead of the whole-grid strips
-    table (which is a multi-GB build at fine grids — measured remote
-    compile failure on the 131k debris disk, round 3). Results must be
-    identical to the covering whole-grid packed layout."""
+    table (a multi-GB build at fine grids). Results must be identical to
+    the covering whole-grid packed layout."""
     pos, vel, mass = _clustered_scene(seed=11)
     radius = _radius(mass) * 2.0
     g, b = 16, 2  # fine grid, peaked scene -> few occupied windows
     # tiny bulk budget forces the sparse path; generous tail covers rest
-    buckets = ((32, 96, 24), (160, 320, 512))
+    buckets = ((32, 96, 24), (64, 96, 128))
     n_windows = g * g * (-(-g // b))
     assert 4 * buckets[0][2] < n_windows  # the sparse branch is exercised
     base = binned_collision_pass(
         pos, vel, mass, radius, BOX, n_cells=g, band_cells=b,
-        packed_caps=(160, 320), interpret=True,
+        packed_caps=(64, 96),
     )
     buck = binned_collision_pass(
         pos, vel, mass, radius, BOX, n_cells=g, band_cells=b,
@@ -891,8 +723,9 @@ def test_merge_secondary_kill_is_arithmetic():
 
 
 def test_bucketed_fuzz_parity():
-    """Randomized scenes/grids: bucketed == whole-grid packed whenever
-    both cover (including an empty tail bucket and a 3-bucket ladder)."""
+    """Randomized scenes/grids: bucketed (window kernel) == whole-grid
+    packed (XLA sweep) whenever both cover (including an empty tail bucket
+    and a 3-bucket ladder)."""
     rng = np.random.default_rng(2024)
     for trial in range(6):
         n = int(rng.integers(64, 200))
@@ -926,11 +759,11 @@ def test_bucketed_fuzz_parity():
         if trial == 5:  # exercise >2 buckets: prepend a tiny first tier
             buckets = ((8, 16, 64),) + buckets
         (t2, s2, _) = buckets[-1]
-        base = binned_collision_pass(
+        base = binned_collision_pass(  # the plain XLA sweep
             pos, vel, mass, radius, BOX, n_cells=g, band_cells=b,
-            packed_caps=(t2, s2), interpret=True,
+            packed_caps=(t2, s2),
         )
-        buck = binned_collision_pass(
+        buck = binned_collision_pass(  # the Triton kernel, interpreted
             pos, vel, mass, radius, BOX, n_cells=g, band_cells=b,
             buckets=buckets, interpret=True,
         )
@@ -978,7 +811,7 @@ def _run_alternating(timer_slots, n_steps=14, merge_time=0.05):
         pa, pb = _alternating_positions(k)
         st = st._replace(pos=st.pos.at[0].set(pa).at[2].set(pb), vel=vel0)
         st, ev = resolve_collisions_scaled(
-            st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+            st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
         )
         if int(ev.n_merges):
             return k
@@ -1015,7 +848,7 @@ def test_kslot_timers_match_single_slot_on_stable_pair():
         for k in range(8):
             st = st._replace(pos=pos0, vel=vel0)
             st, ev = resolve_collisions_scaled(
-                st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+                st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
             )
             if int(ev.n_merges):
                 fired[slots] = k
@@ -1032,7 +865,7 @@ def test_kslot_stale_entry_prunes():
     st = st._replace(pos=st.pos.at[0].set(pa).at[2].set(pb))
     h = 0.016
     st, _ = resolve_collisions_scaled(
-        st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+        st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
     )
     assert int(st.partner[1].max()) >= 0
     # teleport both neighbors away for two steps -> full prune
@@ -1041,7 +874,125 @@ def test_kslot_stale_entry_prunes():
     for _ in range(2):
         st = st._replace(pos=far)
         st, _ = resolve_collisions_scaled(
-            st, cfg, h, BOX, n_cells=8, max_per_cell=8, interpret=True
+            st, cfg, h, BOX, n_cells=8, packed_caps=(64, 64), interpret=True
         )
     assert int(st.partner[1].max()) == -1
     assert float(st.contact_t[1].max()) == 0.0
+
+
+def _window_inputs(n_win=5, t_rows=21, s_rows=9 * 13, seed=0):
+    """Random window blocks: tgt [n_win t_rows, 16], src [n_win 16, s_rows]
+    with dense overlaps, dead lanes and duplicate gidx (the self pair)."""
+    rng = np.random.default_rng(seed)
+
+    def feats(k):
+        f = np.zeros((k, 16), np.float32)
+        f[:, 0:3] = rng.uniform(0, 4, (k, 3))
+        f[:, 3:6] = rng.normal(0, 1, (k, 3))
+        f[:, 6] = np.where(rng.random(k) < 0.15, 0.0, rng.uniform(1, 5, k))
+        f[:, 7] = rng.uniform(0.3, 0.9, k)
+        f[:, 8] = rng.integers(0, 40, k)
+        return f
+
+    tgt = feats(n_win * t_rows)
+    src = feats(n_win * s_rows).reshape(n_win, s_rows, 16)
+    src = src.transpose(0, 2, 1).reshape(n_win * 16, s_rows)
+    return jnp.asarray(tgt), jnp.asarray(src)
+
+
+@pytest.mark.parametrize("grav", [False, True], ids=["plain", "short_grav"])
+@pytest.mark.parametrize("tiles", [(16, 32), (8, 16), (32, 64)])
+def test_window_kernel_matches_xla_sweep(grav, tiles):
+    """The Triton window kernel (interpreted, GPU-sized tiles that do not
+    divide the window) against the plain XLA sweep: the five fused
+    outputs (and the short-range gravity) to the collision tolerance, the
+    same deepest partner."""
+    from nbx.ops.collide import _collide_par, _collide_windows_xla, \
+        collide_windows
+
+    n_win, t_rows, s_rows = 5, 21, 9 * 13
+    tgt, src = _window_inputs(n_win, t_rows, s_rows)
+    par = _collide_par(0.2, 0.5, (0.5, 1.5, 0.1) if grav else None)
+    want = _collide_windows_xla(par, tgt, src, n_win, t_rows, s_rows)
+    # the interpreter takes big tiles by default; force the GPU's shapes
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+    import functools
+
+    from nbx.ops import collide
+
+    kernel = functools.partial(collide._window_kernel, t_rows=t_rows,
+                               s_rows=s_rows, block_t=tiles[0],
+                               chunk=tiles[1])
+    shapes = [jax.ShapeDtypeStruct(w.shape, jnp.float32) for w in want]
+    got = pl.pallas_call(
+        kernel, grid=(n_win, pl.cdiv(t_rows, tiles[0])), out_shape=shapes,
+        backend="triton", compiler_params=plt.CompilerParams(num_warps=2),
+        interpret=True,
+    )(par, tgt, src)
+    assert len(got) == len(want) == (3 if grav else 2)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(got[1])[:, 1],
+                                  np.asarray(want[1])[:, 1])
+    np.testing.assert_allclose(np.asarray(got[1])[:, 0],
+                               np.asarray(want[1])[:, 0], rtol=1e-6)
+    assert (np.asarray(want[1])[:, 1] >= 0).sum() > 10  # partners exist
+    if grav:
+        np.testing.assert_allclose(np.asarray(got[2]), np.asarray(want[2]),
+                                   rtol=1e-5, atol=1e-6)
+    # and through the public dispatcher with interpret=True
+    disp = collide_windows(par, tgt, src, n_win, t_rows, s_rows,
+                           interpret=True)
+    np.testing.assert_allclose(np.asarray(disp[0]), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("grav", [False, True], ids=["plain", "short_grav"])
+def test_window_kernel_lowers_for_cuda(grav, monkeypatch):
+    """The compiled route: the window kernel lowers to Triton IR for the
+    CUDA platform (what the GPU's compiler receives), at the default
+    tiles, without a GPU present."""
+    from jax import export
+
+    from nbx.ops.collide import _collide_par, collide_windows
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    tgt, src = _window_inputs(4, 40, 9 * 45)
+    par = _collide_par(0.2, 0.5, (0.5, 1.5, 0.1) if grav else None)
+    f = jax.jit(lambda p, t, s: collide_windows(p, t, s, 4, 40, 9 * 45))
+    exp = export.export(
+        f, platforms=["cuda"],
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")],
+    )(par, tgt, src)
+    text = exp.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text and "nbx_collide" in text
+
+
+def test_construction_rejects_unknown_value():
+    """construction is validated up front (a typo must not silently fall
+    back to another strips build)."""
+    from nbx.ops.collide import bucketed_collision_blocks_local
+
+    pos, vel, mass = _granular_scene(n=32)
+    radius = _radius(mass)
+    with pytest.raises(ValueError, match="construction"):
+        binned_collision_pass(pos, vel, mass, radius, BOX, n_cells=4,
+                              buckets=((8, 8, 8), (16, 16, 8)),
+                              construction="sliec")
+    with pytest.raises(ValueError, match="construction"):
+        bucketed_collision_blocks_local(
+            pos, vel, mass, radius, BOX, 4, 2, ((8, 8, 8), (16, 16, 8)),
+            0.2, 0.5, -1, 4, construction="grd")
+
+
+def test_layout_arguments_validated():
+    """Exactly one layout, and a band within the grid."""
+    pos, vel, mass = _granular_scene(n=32)
+    radius = _radius(mass)
+    with pytest.raises(ValueError, match="exactly one"):
+        binned_collision_pass(pos, vel, mass, radius, BOX, n_cells=4)
+    with pytest.raises(ValueError, match="band_cells"):
+        binned_collision_pass(pos, vel, mass, radius, BOX, n_cells=4,
+                              band_cells=5, packed_caps=(8, 8))

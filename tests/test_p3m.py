@@ -237,9 +237,8 @@ def test_p3m_twolevel_robust_to_outlier_residuals():
 
 def test_p3m_tune_for_clustered_scene():
     """Scene-census tuner: on a field+core scene the chosen tune respects
-    its own budgets, is kwargs-compatible with p3m_acceleration, and
-    sizes an occupancy-bucketed PP layout (pp_buckets) whose bulk caps
-    sit below K (the clustered regime bucketing exists for)."""
+    its own budgets and is kwargs-compatible with p3m_acceleration, which
+    then corrects every overflowing body."""
     from nbx.ops.p3m import p3m_tune_for
 
     rng = np.random.default_rng(2)
@@ -252,19 +251,12 @@ def test_p3m_tune_for_clustered_scene():
     assert tune["g"] == 64
     assert tune["g"] >= 3 * tune["n_cells"]
     assert tune["n_residual"] <= tune["max_residual"]
-    assert tune["n_affected"] <= tune["affected_cap"]
-    b = tune["pp_buckets"]
-    if b is not None:  # accepted: bulk caps strictly under K
-        assert b[0][0] < tune["max_per_cell"], b
-        assert all(len(t) == 3 for t in b)
-    # the five p3m_acceleration keys are directly usable
+    # the four p3m_acceleration keys are directly usable
     acc, unc = p3m_acceleration(
         pos, jnp.ones(pos.shape[0], jnp.float32), 1.0, box,
         g=tune["g"], n_cells=tune["n_cells"],
         max_per_cell=tune["max_per_cell"],
         max_residual=tune["max_residual"],
-        affected_cap=tune["affected_cap"],
-        pp_impl="xla",
     )
     assert int(unc) == 0
     assert np.isfinite(np.asarray(acc)).all()

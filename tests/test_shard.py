@@ -75,7 +75,7 @@ def test_sharded_2d_matches_1d(eight_devices):
 def test_sharded_energy(mesh):
     pos, vel, mass = _setup(n=256, seed=2)
     st = shard.shard_state(mesh, pos, vel, mass)
-    ke, pe = shard.sharded_energy(mesh, st, 0.5, 0.5, impl="jnp")
+    ke, pe = shard.sharded_energy(mesh, st, 0.5, 0.5)
     ke_ref = forces.kinetic_energy(jnp.asarray(vel), jnp.asarray(mass))
     pe_ref = forces.potential_energy(jnp.asarray(pos), jnp.asarray(mass), 0.5, 0.5)
     np.testing.assert_allclose(float(ke), float(ke_ref), rtol=1e-5)
@@ -89,14 +89,13 @@ def test_sharded_drift_short(mesh):
     pos, vel, mass = _setup(n=512, seed=3)
     st = shard.shard_state(mesh, pos, vel, mass)
     step = shard.make_sharded_step(mesh, impl="jnp")
-    ke0, pe0 = shard.sharded_energy(mesh, st, 0.5, 0.5, impl="jnp")
+    ke0, pe0 = shard.sharded_energy(mesh, st, 0.5, 0.5)
     e0 = float(ke0 + pe0)
     st, energies = shard.run_sharded(
         st, step, 0.5, 0.5, 0.005, n_steps=50, diag_every=25, mesh=mesh,
-        impl="jnp",
     )
     assert energies.shape == (2, 2)
-    ke1, pe1 = shard.sharded_energy(mesh, st, 0.5, 0.5, impl="jnp")
+    ke1, pe1 = shard.sharded_energy(mesh, st, 0.5, 0.5)
     drift = abs(float(ke1 + pe1) - e0) / abs(e0)
     assert drift < 1e-3, f"sharded energy drift {drift}"
 
@@ -248,7 +247,8 @@ def test_sharded_fracture_matches_scaled_semantics(mesh):
 
     gst = make_granular_state(pos, vel, mass, key=3)
     gst, gev = resolve_collisions_scaled(
-        gst, cfg, 0.016, 100.0, n_cells=8, max_per_cell=8, interpret=True
+        gst, cfg, 0.016, 100.0, n_cells=8, packed_caps=(64, 64),
+        interpret=True
     )
     st = shard.shard_body_state(mesh, pos, vel, mass)
     step = shard.make_sharded_physics_step(mesh, cfg, impl="jnp")
@@ -385,11 +385,10 @@ def test_sharded_granular_step_matches_single(mesh):
     fractures, fragment placement, timers and all counters.
 
     Tolerance note: counters/partners/timers/materials match EXACTLY;
-    pos/vel/temp to f32 ulp tolerance — in interpret mode the Pallas
-    kernel is traced into the surrounding XLA graph, so FMA/fusion
-    choices (e.g. a2*dx - ft*rvx) can differ between the single-chip and
-    sharded programs. The compiled Mosaic kernel is one binary in both
-    paths (bit-identical blocks in, bit-identical rows out)."""
+    pos/vel/temp to f32 ulp tolerance — the interpreted kernel is traced
+    into the surrounding XLA graph, so FMA/fusion choices (e.g.
+    a2*dx - ft*rvx) can differ between the single-device and sharded
+    programs."""
     box, g, band, caps = 100.0, 4, 2, (256, 384)
     h = 0.016
     n_steps = 4

@@ -1,7 +1,8 @@
 """Halo-exchange spatially-owned sharded granular step (nbx.parallel.spatial).
 
-Runs on the 8-virtual-device CPU mesh (conftest re-exec). The Pallas kernel
-runs in interpret mode; the parity target is the single-chip
+Runs on the 8-virtual-device CPU mesh (tests/conftest.py). The collision
+window kernel runs in the Pallas interpreter; the parity target is the
+single-device
 collisions_scaled sequence, matched per-UID (slot order is owner-dependent
 by design).
 """
@@ -723,7 +724,6 @@ def test_spatial_p3m_matches_single_chip_force(mesh):
     acc_ref, unc = p3m_acceleration(
         jnp.asarray(pos), jnp.asarray(mass), cfg.G, BOX, g=pm_grid,
         n_cells=G8, max_per_cell=256, eps=cfg.softening, max_residual=256,
-        pp_impl="xla",
     )
     assert int(unc) == 0
     acc_ref = np.asarray(acc_ref)
@@ -754,7 +754,6 @@ def test_spatial_p3m_2d_mesh(eight_devices):
     acc_ref, unc = p3m_acceleration(
         jnp.asarray(pos), jnp.asarray(mass), cfg.G, BOX, g=32,
         n_cells=G8, max_per_cell=256, eps=cfg.softening, max_residual=256,
-        pp_impl="xla",
     )
     assert int(unc) == 0
     acc_ref = np.asarray(acc_ref)
